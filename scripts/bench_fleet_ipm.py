@@ -2,7 +2,7 @@
 
 VERDICT r2 item 2: take the batched device IPM from toy (32 x 24x64) to
 real fleet scale — 64 x (256x512)-class dense LPs — with f32 batched
-ADA' GEMMs + batched Cholesky on the MXU and a host-f64 Mehrotra endgame
+ADA' GEMMs + batched Cholesky on the device and a host-f64 Mehrotra endgame
 per instance (solvers/ipm_fleet.py).  The comparison target is the host
 per-instance IPM loop (solvers/ipm.py), which is what the reference's
 vendor-barrier usage amounts to (reference solver_caller/caller.py:188-193,
@@ -14,7 +14,6 @@ Timing protocol per CLAUDE.md: fetch-forced warmup, median of reps.
 from __future__ import annotations
 
 import json
-import os
 import sys
 import time
 
@@ -33,13 +32,9 @@ def make_fleet(B, m, n, seed=0):
 def main():
     import jax
 
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from smart_crossover_tpu.config import use_compile_cache
+
+    use_compile_cache()
 
     from smart_crossover_tpu.solvers.ipm import ipm_solve
     from smart_crossover_tpu.solvers.ipm_batched import ipm_dense_batched
@@ -52,7 +47,7 @@ def main():
     print(f"backend={backend} fleet={B}x({m}x{n}) device_dtype={dt.__name__}")
     A, b, c, l, u = make_fleet(B, m, n)
 
-    # --- device stage alone (batched GEMM + Cholesky on the MXU) ----------
+    # --- device stage alone (batched GEMM + Cholesky on device) ----------
     dev_args = tuple(v.astype(dt) for v in (A, b, c, l, u))
     out = ipm_dense_batched(*dev_args, tol=1e-5, max_iters=60)
     float(np.asarray(out["x"]).sum())          # fetch-forced warmup

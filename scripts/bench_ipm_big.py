@@ -4,7 +4,7 @@
 One dense LP (default 5000x15000), solved to 1e-8 two ways:
 
 * ``ipm_big`` — fleet machinery at B=1: f32 device stage carries the bulk
-  Mehrotra iterations (the 750-GFLOP normal-equations GEMM rides the MXU),
+  Mehrotra iterations (the 750-GFLOP normal-equations GEMM runs on the device),
   host f64 endgame pays the exact GEMM only for the last 2-5 steps;
 * host dense Mehrotra (`ipm_endgame_batched` at B=1 from a cold
   midpoint start — threaded dense BLAS3, the FAIR host shape for a
@@ -19,7 +19,6 @@ Usage: python scripts/bench_ipm_big.py [m n] [--device-only|--host-only]
 from __future__ import annotations
 
 import json
-import os
 import sys
 import time
 
@@ -81,13 +80,9 @@ def run_host(m, n, A, b, c, l, u):
 def main():
     import jax
 
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from smart_crossover_tpu.config import use_compile_cache
+
+    use_compile_cache()
 
     args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
     m, n = args if len(args) == 2 else (5000, 15000)

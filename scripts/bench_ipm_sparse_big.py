@@ -4,9 +4,9 @@
 VERDICT r4 item 5's second half: one sparse >=10k-row structure-family
 instance (staircase multiperiod LP, data/lp_gen.py — the dominant optLP
 structure) through the single-big-LP device barrier ``ipm_big``: the f32
-device stage carries the bulk Mehrotra iterations on the MXU (the
+device stage carries the bulk Mehrotra iterations on the device (the
 instance is densified device-side — at 10k x 37k the dense NE GEMM is
-exactly what the MXU wants), the f64 endgame runs matrix-free PCG
+exactly what the device wants), the f64 endgame runs matrix-free PCG
 through the device-resident f32 factor (solvers/ne_device.py), and the
 result is checked against scipy HiGHS on the original sparse form.
 

@@ -1,9 +1,8 @@
 """Stage breakdown of the flagship large-LP perturbation crossover.
 
-Reconstructs the BENCH.md 3000x12000-class sparse LP (general rows, a
-slice of free variables) and profiles `run_perturb_algorithm` end-to-end
-with per-stage timers, to locate what the TPU can take over (VERDICT r2
-item 2: offload the dense normal-equations blocks).
+Builds a 3000x12000-class sparse LP (general rows, a slice of free
+variables) and profiles `run_perturb_algorithm` end-to-end with per-stage
+timers, to locate what the device can take over.
 
 Usage: python scripts/profile_perturb_large.py [m n] (default 3000 12000)
 """

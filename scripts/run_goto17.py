@@ -12,13 +12,13 @@ flagship path exercises the production file ingest — then runs
   1. the cold native network simplex (C++ core), and
   2. CNET_MCF crossover from a first-order (PDHG) warm start,
 
-and reports pivots + wall-clock for BENCH.md.  The summary carries BOTH
+and reports pivots + wall-clock.  The summary carries BOTH
 end-to-end geo-means: steady-state (persistent-compile-cache deployment)
 and including each seed's actual warm-start wall time with any first
 compile (the honest cache-cold column; VERDICT r4 weak 3).
 
-On a TPU backend the warm start runs the device arc-list PDHG
-(solvers/pdhg_mcf.py); elsewhere the host scipy PDHG core.
+With an accelerator present the warm start runs the device arc-list PDHG
+(solvers/pdhg_mcf.py); on the CPU the host scipy PDHG core.
 
 Usage: python scripts/run_goto17.py [width] [n_seeds] [regular] [warm_iters]
        (default 362 3 1 5000; regular=0 runs the NON-degree-regular
@@ -38,17 +38,11 @@ import numpy as np
 
 
 def main():
-    import os
-
     import jax
 
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from smart_crossover_tpu.config import use_compile_cache
+
+    use_compile_cache()
 
     from smart_crossover_tpu.data.dimacs import read_dimacs_min
     from smart_crossover_tpu.data.dimacs_write import write_dimacs_min
@@ -64,7 +58,9 @@ def main():
     warm_iters = int(sys.argv[4]) if len(sys.argv) > 4 else 5000
     run_cold = warm_iters > 0          # 0 or negative: skip the cold baseline
     warm_iters = abs(warm_iters) or 5000
-    on_tpu = jax.default_backend() == "tpu"
+    from smart_crossover_tpu.config import on_accelerator
+
+    accelerator = on_accelerator()
     rows = []
     min_dir = Path(tempfile.mkdtemp(prefix="goto17_min_"))
     for seed in range(42, 42 + n_seeds):
@@ -97,7 +93,7 @@ def main():
         # --- first-order warm start (PDHG) + CNET_MCF ---------------------
         from smart_crossover_tpu.solvers.settings import SolverSettings
         t0 = time.perf_counter()
-        if on_tpu:
+        if accelerator:
             import jax.numpy as jnp
 
             from smart_crossover_tpu.solvers.pdhg_mcf import pdhg_mcf_device
@@ -116,7 +112,7 @@ def main():
         warm_dt = time.perf_counter() - t0
         # steady-state warm-start time: re-run the (now compiled) PDHG once
         # so the summary can separate compile from compute honestly
-        if on_tpu:
+        if accelerator:
             t0 = time.perf_counter()
             pdhg_mcf_device(mcf, tol=1e-4, max_iters=warm_iters,
                             mode="halpern", dtype=jnp.float32)

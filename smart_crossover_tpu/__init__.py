@@ -1,4 +1,4 @@
-"""smart_crossover_tpu — a TPU-native LP crossover framework.
+"""smart_crossover_tpu — an LP crossover framework in JAX.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of the
 smart-crossover reference codebase (network crossover for min-cost flow /

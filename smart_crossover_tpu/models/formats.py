@@ -3,14 +3,14 @@
 Capability parity with the reference's formats module
 (reference formats.py:11-161): ``GeneralLP``, ``StandardLP``, ``MinCostFlow``
 and ``OptTransport``, with the same mathematical semantics.  The *design* is
-TPU-first rather than scipy-first:
+device-first rather than scipy-first:
 
 * ``MinCostFlow`` is arc-list primary (``tails``/``heads`` int arrays), which
   maps directly onto JAX segment ops for flow ranking, tree algorithms and
   network-simplex pricing; the sparse incidence matrix is derived on demand
   for host-side exact algebra.
 * ``OptTransport`` keeps the dense (s, d, M) structure that batches/vmaps
-  onto the MXU.
+  onto the device.
 * ``GeneralLP``/``StandardLP`` carry scipy-sparse (or dense) ``A`` on the
   host control plane; device engines consume them densely or as BCOO
   (see solvers/pdhg.py).
@@ -177,8 +177,8 @@ class MinCostFlow:
     net-inflow requirement per node (``sum(b) == 0``).
 
     This is the same LP the reference's MinCostFlow carries as a CSR matrix
-    (reference formats.py:105-121); the arc-list layout is what TPU segment
-    ops and the network simplex consume directly.
+    (reference formats.py:105-121); the arc-list layout is what device
+    segment ops and the network simplex consume directly.
     """
 
     tails: np.ndarray

@@ -8,9 +8,11 @@ from pathlib import Path
 HERE = Path(__file__).parent
 
 
-def build(verbose: bool = True) -> Path:
+def build(verbose: bool = True, out: Path | None = None) -> Path:
+    """Compile netsimplex.cpp into ``out`` (default: the package's
+    libscxnative.so, the path ``native.load_native`` loads)."""
     src = HERE / "netsimplex.cpp"
-    out = HERE / "libscxnative.so"
+    out = HERE / "libscxnative.so" if out is None else Path(out)
     cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
            str(src), "-o", str(out)]
     if verbose:

@@ -4,7 +4,7 @@ Same responsibilities as the reference's NetworkManager protocol and its two
 implementations (reference net_manager.py:14-509): maintain the growing
 column-generation subproblem, fix/free variables, big-M extension, basis and
 solution recovery, and the optimality certificate.  The design differs where
-TPU-native structure helps:
+a device-first structure helps:
 
 * the MCF is arc-list primary, so "column slicing" is trivial array indexing
   and the big-M extension appends arcs instead of stacking sparse blocks;

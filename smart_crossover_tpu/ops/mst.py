@@ -10,14 +10,13 @@ picks its best outgoing edge under that strict order, which makes the union of
 picks acyclic (up to mutual picks, which are deduplicated) — the standard
 Borůvka tie-safety argument.
 
-TPU note: vector gathers/scatters and segment reductions serialize badly
-on TPU (measured ~200 µs vs ~38 µs for the one-hot-matmul equivalent per
-(16,512) round — see ops/transport_simplex_parent.py), so all the
-per-round index chasing here (comp lookups, pointer jumping, segment
-max/min, the picked-edge scatter) is expressed as one-hot matmuls /
-masked reductions on the MXU.  ``Precision.HIGHEST`` keeps integer ids
-exact (default-bf16 MXU passes round ids > 256); non-finite values are
-clamped before any one-hot matmul (0 * inf = NaN).
+All the per-round index chasing here (comp lookups, pointer jumping,
+segment max/min, the picked-edge scatter) is expressed as one-hot matmuls /
+masked reductions instead of gathers and scatters (whether plain gathers
+are faster on the GPU is not measured yet).  ``Precision.HIGHEST`` keeps
+integer ids exact (a reduced-precision pass — TF32 on the GPU — rounds ids
+above 2048); non-finite values are clamped before any one-hot matmul
+(0 * inf = NaN).
 """
 from __future__ import annotations
 

@@ -1,14 +1,12 @@
 """Bit-packed ancestor-matrix batched transportation simplex on device.
 
-Fourth-generation device simplex (VERDICT r3 item 3: the anc engine sits
-at ~25% of HBM roofline at 1024^2).  Same algorithm as
+Fourth-generation device simplex.  Same algorithm as
 ops/transport_simplex_anc.py — the root-path indicator matrix maintained
 incrementally across pivots — with two structural changes that cut the
 per-pivot HBM traffic ~6x:
 
 * N is stored BIT-PACKED: (V, V/32) uint32 words instead of (V, V) bytes.
-  The XOR/OR row algebra is word-parallel; measured on the v5e the packed
-  update runs 73 us vs 441 us unpacked at B=16, V=2048.
+  The XOR/OR row algebra is word-parallel.
 * the LCA depth needs NO masked max-reduce: two root-path sets intersect
   in exactly the ancestor chain of their LCA, so
       lca_dep(u) = popcount(path(u) AND path(e_same)) - 1

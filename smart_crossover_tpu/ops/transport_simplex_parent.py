@@ -1,17 +1,15 @@
 """Parent-array batched transportation simplex on device.
 
-Second-generation device simplex (see STATUS.md round-2 sketch and
-VERDICT.md item 2).  The first implementation (ops/transport_simplex.py)
-pays O(S*D * tree-diameter) per pivot: potentials and cycles are found by
-dense masked propagation over the basis mask.  This one carries the basis
+Second-generation device simplex.  The first implementation
+(ops/transport_simplex.py) pays O(S*D * tree-diameter) per pivot:
+potentials and cycles are found by dense masked propagation over the
+basis mask.  This one carries the basis
 tree explicitly as a ``parent`` vector over the V = S + D nodes and runs
 every per-pivot step as O(V log V) work via binary lifting.
 
-TPU-critical detail: vector gathers (``x[p]``) lower terribly on TPU —
-measured 200 µs per (16,512) doubling round vs 38 µs for the equivalent
-ONE-HOT MATMUL (the gather serializes; the matmul rides the MXU).  Every
-per-pivot recursion here is therefore expressed as matmuls against
-one-hot matrices built with broadcast comparisons:
+Design detail: instead of vector gathers (``x[p]``), every per-pivot
+recursion here is expressed as matmuls against one-hot matrices built
+with broadcast comparisons:
 
 * one chain pass builds the lifting tables, depths and dual potentials
   together — ONE (V,V) one-hot per doubling round, all three recursions

@@ -34,9 +34,9 @@ def bipartite_tree_solve(mask, s, d, max_rounds: int | None = None):
     if max_rounds is None:
         max_rounds = S + D + 2
     dtype = jnp.result_type(s, d, jnp.float32)
-    # TPU: vector scatters / segment_sum serialize — express each leaf
-    # round's scatter as an elementwise one-hot product and the residual
-    # reduction as a one-hot matmul (see ops/transport_simplex_parent.py)
+    # each leaf round's scatter is an elementwise one-hot product and the
+    # residual reduction a one-hot matmul, not scatters / segment_sum
+    # (the idiom of ops/transport_simplex_parent.py)
     hi = jax.lax.Precision.HIGHEST
 
     def body(state):

@@ -47,48 +47,50 @@ def tnet_single(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200,
     return X, push_iters, obj
 
 
-@partial(jax.jit, static_argnames=("reg", "sinkhorn_iters", "tree_weights",
-                                   "use_pallas"))
+@partial(jax.jit, static_argnames=("reg", "sinkhorn_iters", "tree_weights"))
 def batched_tnet(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200,
-                 tree_weights: str = "flow",
-                 use_pallas: bool | None = None):
-    """vmapped TNET over an instance batch: s (B,S), d (B,D), M (B,S,D).
-
-    On TPU at eligible shapes the Sinkhorn stage runs as the fused Pallas
-    kernel (cost block VMEM-resident for all iterations): measured 2.4x
-    the XLA loop at 64x256x256 under the corrected timing protocol, and
-    Sinkhorn dominates this pipeline.  Per-instance eps = reg*max(M_i) is
-    folded into the cost (the plan is invariant under (M/eps, eps=1)), so
-    one static-reg kernel serves the whole batch.
-    """
-    if use_pallas is None:
-        from smart_crossover_tpu.config import on_tpu
-        from smart_crossover_tpu.ops.sinkhorn_pallas import pallas_shapes_ok
-
-        use_pallas = (tree_weights == "flow" and on_tpu()
-                      and pallas_shapes_ok(M.shape[1], M.shape[2], M.dtype))
-    if use_pallas and tree_weights == "flow":
-        from smart_crossover_tpu.ops.ranking import ot_flow_indicators
-        from smart_crossover_tpu.ops.sinkhorn_pallas import (
-            sinkhorn_plan_pallas)
-        from smart_crossover_tpu.network_methods.tree_bi import (
-            identify_tree_flows)
-        from smart_crossover_tpu.solvers.sinkhorn import round_to_feasible
-
-        eps = reg * jnp.max(M, axis=(1, 2))
-        Mn = M / eps[:, None, None]
-        X0 = sinkhorn_plan_pallas(s, d, Mn, 1.0, num_iters=sinkhorn_iters)
-
-        def rest(X0_, s_, d_, M_):
-            Xs = round_to_feasible(X0_, s_, d_)
-            W = ot_flow_indicators(Xs, s_, d_)
-            X, push_iters = identify_tree_flows(W, s_, d_)
-            return X, push_iters, jnp.sum(X * M_)
-
-        return jax.vmap(rest)(X0, s, d, M)
+                 tree_weights: str = "flow"):
+    """vmapped TNET over an instance batch: s (B,S), d (B,D), M (B,S,D)."""
     return jax.vmap(lambda a, b_, c_: tnet_single(a, b_, c_, reg,
                                                   sinkhorn_iters,
                                                   tree_weights))(s, d, M)
+
+
+# Engine routing for engine='auto', measured on one NVIDIA H100 80GB HBM3
+# at a 400 W power limit: seconds to certified optimal vertices, device
+# stage (whole-batch vmap, median of 3) plus host certification, against
+# the host native-core path end to end (median of 2).
+#
+#               parent   anc    packed   host
+#   64 x 256^2   0.82    0.26    0.21    0.58
+#   16 x 784^2   7.24    0.66    0.55    0.75
+#
+# 'packed' wins at both shapes.  The device path stops at 1024 a side,
+# above the largest measured shape; bigger instances, a mesh, and the CPU
+# backend go to the host core.
+DEVICE_ENGINE = "packed"
+DEVICE_MAX_SIDE = 1024
+
+
+def auto_engine(S: int, D: int, mesh=None,
+                accelerator: bool | None = None) -> str:
+    """The pivot engine ``engine='auto'`` runs for an S x D batch.
+
+    ``accelerator`` overrides the check of the default device (the CPU
+    tests use it to exercise the table)."""
+    if accelerator is None:
+        from smart_crossover_tpu.config import on_accelerator
+
+        accelerator = on_accelerator()
+    if accelerator and mesh is None and max(S, D) <= DEVICE_MAX_SIDE:
+        return DEVICE_ENGINE
+    return "host"
+
+
+def default_max_pivots(S: int, D: int) -> int:
+    """Pivot cap of the device simplex: warm-started pivot counts grow
+    about linearly in V = S + D (median ~1,000 at 784^2)."""
+    return max(5000, 8 * (S + D))
 
 
 def batched_tnet_exact(s, d, M, reg: float = 0.005,
@@ -100,18 +102,16 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
     ``engine='host'``: device does the heavy approximate work (the batched
     TNET pipeline); the host's native network simplex then cleans each
     instance up from the identified tree basis — usually a handful of
-    pivots.  ``engine='device'`` (or a specific device pivot engine:
-    'parent', 'anc', 'mask'): the whole solve, pivots included, stays on
-    device — measured faster than the host cleanup on the v5e up to
-    ~512x512 with 'parent', with 'anc' the 512^2..1024^2 engine
-    (BENCH.md).  Every device result is CERTIFIED on the host (exact f64
-    vertex + duals recomputed from the returned spanning-tree basis,
-    reference acceptance test); instances that fail certification — e.g.
-    f32 potential noise at 1024^2 depth leaves reduced costs at ~-4e-6 —
-    are repaired by a warm-started native network simplex.  The returned
+    pivots.  ``engine='device'`` (the 'packed' engine) or a specific device
+    pivot engine ('parent', 'anc', 'packed', 'mask'): the whole solve,
+    pivots included, stays on device.  Every device result is CERTIFIED on
+    the host (exact f64 vertex + duals recomputed from the returned
+    spanning-tree basis, reference acceptance test); instances that fail
+    certification — e.g. f32 potential noise at 1024^2 depth leaves
+    reduced costs at ~-4e-6 — are repaired by a warm-started native
+    network simplex.  The returned
     vertices are therefore exact f64 regardless of device precision.
-    ``engine='auto'`` picks 'device' on TPU for S, D <= 512 without a
-    mesh, else 'host'.
+    ``engine='auto'`` takes :func:`auto_engine`'s choice.
 
     Returns (X, obj, cleanup_pivots, optimal_mask) as numpy arrays.
     """
@@ -121,39 +121,16 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
     from smart_crossover_tpu.solvers.network_simplex import network_simplex
 
     if engine == "auto":
-        from smart_crossover_tpu.config import on_tpu
-
-        Bq, Sq, Dq = jnp.shape(M)
-        # parent (one-hot lifting) wins at small sizes where its MXU
-        # matmuls are cheap; the ancestor-matrix engine takes over once
-        # the per-pivot (V,V) lifting rounds dominate (>= 256^2, and the
-        # only engine worth running at 1024^2 — BENCH.md round 3)
-        if mesh is None and on_tpu() and max(Sq, Dq) <= 1024:
-            # round-4/5 head-to-heads (BENCH.md): parent < 256^2,
-            # anc 256^2..512^2, the packed-bitmask engine from 784^2.
-            # The Pallas megakernel ('mega') measured 4-20x SLOWER than
-            # these at every size live (BENCH.md round 5) and stays out
-            # of auto-routing by evidence, not omission.
-            if max(Sq, Dq) < 256:
-                engine = "parent"
-            elif max(Sq, Dq) <= 512:
-                engine = "anc"
-            else:
-                engine = "packed"
-        else:
-            engine = "host"
-    if engine in ("device", "parent", "anc", "packed", "mask", "mega") \
+        engine = auto_engine(*jnp.shape(M)[1:], mesh=mesh)
+    if engine in ("device", "parent", "anc", "packed", "mask") \
             and mesh is None:
         from smart_crossover_tpu.network_methods.certify import (
             certify_ot_basis_batch,
         )
 
-        dev_engine = "parent" if engine == "device" else engine
+        dev_engine = "packed" if engine == "device" else engine
         if max_pivots is None:
-            # pivot counts from warm starts grow ~linearly in V; 5k is
-            # ample through 512^2 but caps out around 1024^2
-            Sq, Dq = np.shape(M)[1:]
-            max_pivots = max(5000, 8 * (Sq + Dq))
+            max_pivots = default_max_pivots(*np.shape(M)[1:])
         Xd, obj_d, push, piv, opt, Bm = batched_tnet_exact_device(
             s, d, M, reg=reg, sinkhorn_iters=sinkhorn_iters,
             engine=dev_engine, max_pivots=max_pivots)
@@ -231,62 +208,54 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
 def sharded_batched_tnet_exact_device(mesh, s, d, M, reg: float = 0.005,
                                       sinkhorn_iters: int = 1000,
                                       max_pivots: int = 5000,
-                                      engine: str = "parent"):
+                                      engine: str = "packed"):
     """Batch-shard the fully-device-resident EXACT pipeline (TNET warm
     start + transportation simplex to optimality) over the mesh 'batch'
-    axis.  Each instance's pivot loop stays on its home device; there are
-    no cross-instance collectives, so scaling is embarrassingly parallel
-    across chips."""
+    axis.  Each instance's work stays on its home device; the jitted step
+    follows the inputs' batch sharding, so repeated calls reuse one
+    compiled executable."""
     shard = NamedSharding(mesh, P("batch"))
-    if engine == "mega":
-        # the megakernel is a pallas_call with a batch grid — not
-        # auto-partitionable under jit shardings, so shard_map hands each
-        # device its LOCAL batch slice and runs the kernel per shard
-        from jax.experimental.shard_map import shard_map
-
-        fn = jax.jit(shard_map(
-            lambda s_, d_, M_: batched_tnet_exact_device(
-                s_, d_, M_, reg=reg, sinkhorn_iters=sinkhorn_iters,
-                max_pivots=max_pivots, engine="mega"),
-            mesh=mesh, in_specs=(P("batch"),) * 3,
-            out_specs=(P("batch"),) * 6, check_rep=False))
-    else:
-        fn = jax.jit(
-            lambda s_, d_, M_: batched_tnet_exact_device(
-                s_, d_, M_, reg=reg, sinkhorn_iters=sinkhorn_iters,
-                max_pivots=max_pivots, engine=engine,
-                chunk_b=s_.shape[0]),      # vmap path: no lax.map rechunk
-            in_shardings=(shard, shard, shard),
-            out_shardings=(shard,) * 6)
-    s = jax.device_put(s, shard)
-    d = jax.device_put(d, shard)
-    M = jax.device_put(M, shard)
-    return fn(s, d, M)
+    s, d, M = (jax.device_put(a, shard) for a in (s, d, M))
+    return batched_tnet_exact_device(s, d, M, reg=reg,
+                                     sinkhorn_iters=sinkhorn_iters,
+                                     max_pivots=max_pivots, engine=engine)
 
 
 def sharded_batched_tnet(mesh, s, d, M, reg: float = 0.02,
                          sinkhorn_iters: int = 200):
     """Shard the instance batch over the mesh 'batch' axis and run the
-    jitted pipeline; XLA keeps each instance's work on its home device."""
+    jitted pipeline, which follows the inputs' sharding: XLA keeps each
+    instance's work on its home device."""
     shard = NamedSharding(mesh, P("batch"))
-    fn = jax.jit(
-        lambda s_, d_, M_: batched_tnet(s_, d_, M_, reg=reg,
-                                        sinkhorn_iters=sinkhorn_iters),
-        in_shardings=(shard, shard, shard),
-        out_shardings=(shard, shard, shard))
-    s = jax.device_put(s, shard)
-    d = jax.device_put(d, shard)
-    M = jax.device_put(M, shard)
-    return fn(s, d, M)
+    s, d, M = (jax.device_put(a, shard) for a in (s, d, M))
+    return batched_tnet(s, d, M, reg=reg, sinkhorn_iters=sinkhorn_iters)
+
+
+def _warm_basis(s, d, M, reg, sinkhorn_iters):
+    """One instance's warm start for the device simplex: the TNET vertex
+    and its support completed to a spanning-tree basis (Borůvka over the
+    support indicator).  Returns (X0, basis_mask, push_iters)."""
+    from smart_crossover_tpu.ops.mst import boruvka_bipartite_mst
+
+    X0, push_iters, _ = tnet_single(s, d, M, reg, sinkhorn_iters)
+    support = (X0 > 1e-12).astype(M.dtype)
+    return X0, boruvka_bipartite_mst(support), push_iters
+
+
+@partial(jax.jit, static_argnames=("reg", "sinkhorn_iters"))
+def warm_start_bases(s, d, M, reg: float = 0.005, sinkhorn_iters: int = 1000):
+    """The warm-start stage of :func:`batched_tnet_exact_device` alone,
+    vmapped over the batch (for timing the stages apart)."""
+    return jax.vmap(lambda a, b_, c_: _warm_basis(a, b_, c_, reg,
+                                                  sinkhorn_iters))(s, d, M)
 
 
 @partial(jax.jit, static_argnames=("reg", "sinkhorn_iters", "max_pivots",
-                                   "engine", "chunk_b"))
+                                   "engine"))
 def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
                               sinkhorn_iters: int = 1000,
                               max_pivots: int = 5000,
-                              engine: str = "parent",
-                              chunk_b: int | None = None):
+                              engine: str = "packed"):
     """EXACT batched OT crossover, fully device-resident.
 
     The TNET pipeline identifies a feasible tree vertex per instance; its
@@ -294,26 +263,25 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
     indicator) and the batched device transportation simplex pivots to
     optimality — no host round trip.
 
-    ``engine='parent'`` (default) uses the parent-array/binary-lifting
-    simplex (ops/transport_simplex_parent.py): O(V log V) gathers per pivot
-    plus one dense pricing pass.  ``engine='anc'`` uses the ancestor-matrix
+    ``engine='packed'`` (default; the fastest measured, see the routing
+    table above :func:`auto_engine`) keeps each root path as a packed
+    bitmask row (ops/transport_simplex_packed.py).  ``engine='parent'``
+    uses the parent-array/binary-lifting simplex
+    (ops/transport_simplex_parent.py): O(V log V) gathers per pivot plus
+    one dense pricing pass.  ``engine='anc'`` uses the ancestor-matrix
     simplex (ops/transport_simplex_anc.py): incremental root-path algebra,
-    O(V^2) bool elementwise per pivot — the asymptotically lean engine for
-    512^2..1024^2.  ``engine='mask'`` keeps the original dense-propagation
-    implementation (ops/transport_simplex.py) as the correctness oracle.
+    O(V^2) bool elementwise per pivot.  ``engine='mask'`` keeps the
+    original dense-propagation implementation (ops/transport_simplex.py)
+    as the correctness oracle.
 
-    ``chunk_b`` splits the batch into lax.map chunks of that many
-    instances.  The pivot loop is ~1000x faster when its carried state
-    fits VMEM (measured on the v5e: 16x128^2 pivots at ~3.5 us, 16x256^2
-    at ~6 ms — the spill cliff), so large instances want SMALL chunks.
-    Default: largest power-of-2 divisor of B keeping the chunk's dense
-    working set under ~6 MB.
+    The whole batch is one vmap: measured on the H100, splitting it into
+    sequential lax.map chunks was 3.9-7x slower at 64 x 256^2 and
+    16 x 784^2 (the engines' state is a few MB per instance).
 
     Returns (X, obj, push_iters, pivots, optimal_mask, basis_mask);
     the (B, S, D) boolean basis_mask is the final spanning-tree basis,
     from which network_methods.certify recomputes the exact f64 vertex.
     """
-    from smart_crossover_tpu.ops.mst import boruvka_bipartite_mst
     from smart_crossover_tpu.ops.transport_simplex import transport_simplex
     from smart_crossover_tpu.ops.transport_simplex_anc import (
         transport_simplex_anc,
@@ -331,46 +299,9 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
                 "mask": transport_simplex}.get(engine)
 
     def one(s_, d_, M_):
-        X0, push_iters, _ = tnet_single(s_, d_, M_, reg, sinkhorn_iters)
-        support = (X0 > 1e-12).astype(M_.dtype)
-        Bm = boruvka_bipartite_mst(support)
+        X0, Bm, push_iters = _warm_basis(s_, d_, M_, reg, sinkhorn_iters)
         X, Bm2, pivots, optimal = pivot_fn(
             X0, Bm, M_, s_, d_, max_pivots=max_pivots)
         return X, jnp.sum(X * M_), push_iters, pivots, optimal, Bm2
 
-    s = jnp.asarray(s)
-    d = jnp.asarray(d)
-    M = jnp.asarray(M)
-    B, S, D = M.shape
-
-    if engine == "mega":
-        # the Pallas megakernel batches internally (grid over instances);
-        # only the warm-start pipeline is vmapped
-        from smart_crossover_tpu.ops.transport_simplex_mega import (
-            batched_transport_simplex_mega,
-        )
-
-        def warm(s_, d_, M_):
-            X0, push_iters, _ = tnet_single(s_, d_, M_, reg, sinkhorn_iters)
-            support = (X0 > 1e-12).astype(M_.dtype)
-            return X0, boruvka_bipartite_mst(support), push_iters
-
-        X0, Bm0, push = jax.vmap(warm)(s, d, M)
-        X, Bm2, pivots, optimal = batched_transport_simplex_mega(
-            X0, Bm0, M, max_pivots=max_pivots)
-        return (X, jnp.sum(X * M, axis=(1, 2)), push, pivots, optimal,
-                Bm2)
-    if chunk_b is None:
-        budget = 6 * 1024 * 1024
-        per_inst = 4 * S * D * jnp.dtype(M.dtype).itemsize  # ~4 dense bufs
-        chunk_b = B
-        while chunk_b > 1 and (B % chunk_b or chunk_b * per_inst > budget):
-            chunk_b = max(1, chunk_b // 2)
-    if chunk_b >= B:
-        return jax.vmap(one)(s, d, M)
-    G = B // chunk_b
-    out = jax.lax.map(
-        lambda args: jax.vmap(one)(*args),
-        (s.reshape(G, chunk_b, S), d.reshape(G, chunk_b, D),
-         M.reshape(G, chunk_b, S, D)))
-    return tuple(o.reshape((B,) + o.shape[2:]) for o in out)
+    return jax.vmap(one)(jnp.asarray(s), jnp.asarray(d), jnp.asarray(M))

@@ -1,13 +1,13 @@
 """Batched general-LP crossover: a fleet of small dense LPs.
 
 Device does the barrier work (vmapped Mehrotra IPM — batched normal-equations
-Cholesky on the MXU, solvers/ipm_batched.py); the host then crosses each
+Cholesky on the device, solvers/ipm_batched.py); the host then crosses each
 instance over to an exact vertex with the warm-started revised simplex,
 threaded across cores.  No reference analog (it is single-instance,
-single-solver); this is the TPU-shaped way to run LP fleets.
+single-solver).
 
 Note on precision: with x64 enabled (CPU) the default tol=1e-8 converges in
-8-15 IPM iterations.  On TPU (f32) loosen tol to ~1e-5 and lower
+8-15 IPM iterations.  On an f32 device loosen tol to ~1e-5 and lower
 max_ipm_iters — the host simplex cleanup restores exactness either way.
 """
 from __future__ import annotations
@@ -36,8 +36,7 @@ def batched_lp_crossover(A, b, c, l, u, tol: float = 1e-8,
             per instance, solvers/ipm_fleet.py — the sharpest warm start;
             use for f32 backends where the raw device iterate sits at
             ~1e-5), or 'pdhg' (batched first-order, two matvecs/iter —
-            the cheaper engine for wide fleets; VMEM-resident Pallas
-            kernel on TPU).
+            the cheaper engine for wide fleets).
 
     Returns:
         dict with x (B, n) vertex solutions, obj (B,), pivots (B,),

@@ -18,9 +18,10 @@ MODEL_AXIS = "model"
 
 
 def init_distributed(**kwargs) -> None:
-    """Initialise multi-host JAX (jax.distributed.initialize) when running
-    on a pod slice; a no-op on a single host.  After this, `jax.devices()`
-    spans all hosts and the meshes below shard across DCN+ICI."""
+    """Initialise multi-process JAX (jax.distributed.initialize); a no-op
+    when it cannot (single process / already initialised).  After this,
+    `jax.devices()` spans all processes and the meshes below shard across
+    them."""
     import jax
 
     try:

@@ -1,10 +1,8 @@
 """Multi-host (multi-process) execution of the sharded kernels.
 
-The reference is single-process (SURVEY.md §2.8); the TPU build plan
-(SURVEY.md §7 step 7, BASELINE "1 host / >=2 hosts" row) requires the
-sharded pipelines to run across process boundaries: on a pod slice each
-host drives its local chips and JAX stitches the global mesh over
-ICI+DCN.  This module is that path, and it is exercised for real by
+The reference is single-process (SURVEY.md §2.8); this module runs the
+sharded pipelines across process boundaries, with JAX stitching the
+global mesh over the processes' devices.  It is exercised for real by
 ``tests/test_multihost.py``, which launches two OS processes on the CPU
 backend (Gloo collectives) and runs the column-sharded projector and
 Sinkhorn kernels over the cross-process mesh.
@@ -16,10 +14,16 @@ contributes the shard(s) its local devices own and XLA's collectives do
 the rest.  The compute kernels themselves (shard_map + psum/pmax) are
 shared with the single-process path in ``parallel/projector.py``.
 
-Run one worker per host::
+Run one worker per card, each started once::
 
     python -m smart_crossover_tpu.parallel.multihost \
-        --process-id 0 --num-processes 2 --coordinator localhost:9876
+        --process-id 0 --num-processes 4 --coordinator localhost:9876
+
+Worker ``i`` owns card ``i`` of its machine alone
+(``jax.distributed.initialize(local_device_ids=[i])``): a JAX process
+reserves most of the memory of every card it can see, so without this each
+worker would try to reserve all the cards.  On the CPU backend the setting
+is ignored and each worker uses its own (virtual) CPU devices.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ def _global_from_host(mesh, spec, host_array):
     """Assemble a global Array on ``mesh`` from the full host copy.
 
     Every process passes the SAME full numpy array (cheap at these sizes;
-    on a real pod each host would hold only its slice) and contributes the
+    at scale each process would hold only its slice) and contributes the
     pieces owned by its addressable devices via ``make_array_from_callback``
     (which asks each process only for its local devices' index slices).
     """
@@ -51,7 +55,7 @@ def multihost_projector(mesh, Y, v, tol: float = 1e-8, max_iter: int = 200):
 
     Y (m, n) is column-sharded over the mesh 'model' axis spanning all
     processes; each CG iteration all-reduces one m-vector across the
-    whole mesh (ICI within a host, DCN across hosts on real pods).
+    whole mesh.
     Returns the result shard-per-device as a global Array.
     """
     import jax
@@ -153,7 +157,8 @@ def worker_main(process_id: int, num_processes: int,
         MODEL_AXIS, init_distributed, make_mesh)
 
     init_distributed(coordinator_address=coordinator,
-                     num_processes=num_processes, process_id=process_id)
+                     num_processes=num_processes, process_id=process_id,
+                     local_device_ids=[process_id])
     n_dev = len(jax.devices())
     n_loc = len(jax.local_devices())
     if n_dev <= n_loc and num_processes > 1:
@@ -213,10 +218,9 @@ def bench_projector(process_id: int, num_processes: int, coordinator: str,
                     reps: int = 5) -> None:
     """Time the cross-process projector CG (fixed iteration count).
 
-    Reports CG iterations/s — the BASELINE.md scaling metric ("projection
-    kernel iterations/s at 1 chip / 1 host / >=2 hosts").  Run with
-    num_processes=1 vs 2 at the same global device count to isolate the
-    process-boundary (DCN-analog) collective overhead.
+    Reports CG iterations/s.  Run with num_processes=1 vs 2 at the same
+    global device count to isolate the process-boundary collective
+    overhead.
     """
     import time
 
@@ -227,7 +231,8 @@ def bench_projector(process_id: int, num_processes: int, coordinator: str,
 
     if num_processes > 1:
         init_distributed(coordinator_address=coordinator,
-                         num_processes=num_processes, process_id=process_id)
+                         num_processes=num_processes, process_id=process_id,
+                         local_device_ids=[process_id])
     n_dev = len(jax.devices())
     mesh = make_mesh(n_batch=1, n_model=n_dev)
     rng = np.random.default_rng(0)

@@ -14,13 +14,13 @@ one shard_map:
 * irrigation push   — global argmin/argmax through pmax/pmin tricks
 
 The result is a basic feasible vertex flow of the full instance, held
-column-sharded.  Collectives are all small (O(S) or O(S+D)) vectors riding
-the ICI; the O(S*D) heavy math never leaves its shard.
+column-sharded.  Collectives are all small (O(S) or O(S+D)) vectors; the
+O(S*D) heavy math never leaves its shard.
 
-TPU note: all loop-carried index chasing (component lookups, pointer
-jumping, segment max/min/sum, leaf scatters) runs as one-hot matmuls /
-masked reductions — vector gathers and scatters serialize on TPU (see
-ops/transport_simplex_parent.py; measured 200 µs vs 38 µs per round).
+All loop-carried index chasing (component lookups, pointer jumping,
+segment max/min/sum, leaf scatters) runs as one-hot matmuls / masked
+reductions rather than gathers and scatters (the idiom of
+ops/transport_simplex_parent.py).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Mirrors the tolerance/ratio constants of the reference implementation
 (/root/reference/src/smart_crossover/parameters.py:7-28) so that results are
-comparable, plus TPU-framework specific knobs for the in-house solvers.
+comparable, plus framework-specific knobs for the in-house solvers.
 """
 
 # --- solution accuracy ------------------------------------------------------

@@ -194,7 +194,7 @@ def generate_solver_caller(solver: str = "JAX",
                            ) -> SolverCaller:
     """Reference solving.py:13-29 parity: every backend name returns the
     in-house caller."""
-    if solver not in ("JAX", "TPU", "GRB", "CPL", "MSK"):
-        raise ValueError("Invalid solver. Choose from 'JAX', 'TPU' "
+    if solver not in ("JAX", "GRB", "CPL", "MSK"):
+        raise ValueError("Invalid solver. Choose 'JAX' "
                          "(or legacy 'GRB'/'CPL'/'MSK').")
     return SolverCaller(solver_settings)

@@ -8,7 +8,7 @@ lp_methods/algorithms.py:38-40).  Solves
 
 with any mix of finite/infinite bounds and free variables, via normal
 equations ``A D A' dy = r`` factorised with sparse LU on the host in float64
-(the accuracy-critical path; the TPU carries the first-order engines).
+(the accuracy-critical path; the device carries the first-order engines).
 
 Returns a genuinely *interior* iterate (strictly inside the bounds wherever
 they are finite), which is what the crossover algorithms consume as x_bar.
@@ -88,8 +88,7 @@ def _factor_spd(M, reg, force_dense: bool = False):
     SuperLU backsolves one RHS at a time and is ~10x slower there even
     when the factor itself is sparse.
 
-    Accepts a scipy sparse matrix or a dense ndarray (e.g. the device-
-    formed product from solvers/ne_offload.py).
+    Accepts a scipy sparse matrix or a dense ndarray.
 
     Returns ``solve(rhs)`` accepting a vector or matrix right-hand side.
     """
@@ -292,12 +291,6 @@ def ipm_solve(A, b, c, l, u,
     bnorm = 1.0 + np.linalg.norm(b)
     cnorm = 1.0 + np.linalg.norm(c)
 
-    # device offload of the dense normal-equations formation (opt-in;
-    # see solvers/ne_offload.py for the accuracy/eligibility contract)
-    from smart_crossover_tpu.solvers.ne_offload import maybe_device_ne
-
-    device_ne = maybe_device_ne(A)
-
     # network detection for the tree-PCG normal-equations path (large MCF)
     net_struct = None
     pcg_failed = False
@@ -433,10 +426,7 @@ def ipm_solve(A, b, c, l, u,
             nonfree = ~free
             d_nf = np.where(nonfree, 1.0 / np.maximum(dinv, 1e-14), 0.0)
             d_nf = np.minimum(d_nf, d_direct_cap)
-            if device_ne is not None and mu > 1e-6:
-                M = device_ne.form(d_nf)        # f32 MXU GEMM, dense M
-            else:
-                M = _scaled(A, d_nf) @ AT
+            M = _scaled(A, d_nf) @ AT
             reg = 1e-12 * (1.0 + M.diagonal().max())
             A_F = A[:, free].tocsc()
             f = A_F.shape[1]
@@ -542,10 +532,7 @@ def ipm_solve(A, b, c, l, u,
                             _factor_spd(_scaled(A, _d) @ AT, _reg))
                     return _direct[0](rhs_y)
             if solveM is None:
-                if device_ne is not None and mu > 1e-6:
-                    ADAt = device_ne.form(d)    # f32 MXU GEMM, dense
-                else:
-                    ADAt = _scaled(A, d) @ AT
+                ADAt = _scaled(A, d) @ AT
                 reg = 1e-12 * (1.0 + ADAt.diagonal().max())
                 reg_eff = reg
                 try:

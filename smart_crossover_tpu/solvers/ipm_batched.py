@@ -2,7 +2,7 @@
 
 A device-native Mehrotra predictor-corrector for DENSE bounded LPs, designed
 to vmap over instance batches: the normal-equations matrix ``A D A'`` is a
-batched matmul (MXU) and its factorisation a batched Cholesky.  This is the
+batched matmul and its factorisation a batched Cholesky.  This is the
 device analog of the host solvers/ipm.py (which remains the accuracy path
 for large sparse LPs): use it to barrier-solve fleets of small/medium LPs —
 e.g. perturbed subproblems or OT/MCF relaxations — without leaving the chip.
@@ -164,8 +164,8 @@ def ipm_dense(A, b, c, l, u, tol: float = 1e-8, max_iters: int = 50,
         return ((~done) & (it < max_iters) & (stall < 4)
                 & (mu_prev > mu_exit))
 
-    # full-f32 MXU passes: the default TPU matmul precision (bf16 passes)
-    # caps residuals near 1e-3, an order worse than true f32
+    # full-f32 products: a default-precision f32 product may run in TF32
+    # on the GPU, which caps residuals near 1e-3
     with jax.default_matmul_precision("highest"):
         p, q, zl, zu, y, iters, done, _, _ = jax.lax.while_loop(
             cond, body, (p0, q0, zl0, zu0, y0, jnp.asarray(0),

@@ -3,7 +3,7 @@
 The device engine (solvers/ipm_batched.py) runs the whole Mehrotra
 predictor-corrector for a BATCH of dense LPs on the accelerator — the
 normal-equations products ``A D A'`` are one batched GEMM and the
-factorisations one batched Cholesky, both on the MXU.  In f32 the device
+factorisations one batched Cholesky, both on the device.  In f32 the device
 iterates stall around mu ~ 1e-5 (the normal equations square the
 condition number), so each instance is finished on the host: a few
 warm-started f64 Mehrotra steps (solvers/ipm.py) from the device iterate,
@@ -388,7 +388,7 @@ def ipm_big(A, b, c, l, u, tol: float = 1e-8,
 
     The m^2 n normal-equations GEMM dominates a dense barrier solve at
     m >= 5000.  A host f64 IPM pays it EVERY iteration (~25x); here the
-    device f32 stage carries all bulk iterations on the MXU and the host
+    device f32 stage carries all bulk iterations and the host
     pays the f64 GEMM only for the 2-5 endgame steps.
 
     ``mesh``: a jax Mesh with a 'model' axis column-shards the device

@@ -13,7 +13,7 @@ solver_caller).  The solver:
 * returns primal flows, node potentials, reduced costs, the final basis and
   the pivot count.
 
-This is the exact, float64 host path of the framework (TPU does the
+This is the exact, float64 host path of the framework (the device does the
 approximate, massively parallel work; see config.py).  A C++ core with
 O(subtree) potential updates mirrors this algorithm for speed
 (native/netsimplex.cpp); this numpy version doubles as its test oracle.

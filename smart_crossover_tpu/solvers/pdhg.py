@@ -1,6 +1,6 @@
 """Restarted PDHG (PDLP-style) first-order LP solver in JAX.
 
-The TPU-native "barrier substitute": where the reference warm-starts its
+The in-house "barrier substitute": where the reference warm-starts its
 crossover from a vendor barrier solution (x_bar), this engine produces the
 same kind of approximate primal-dual pair entirely on device — matvec-bound
 work that vmaps over batches and shards over meshes (the sharded variant
@@ -12,7 +12,9 @@ as the saddle point  min_x max_{y: y_le <= 0}  c'x + y'(b - Ax)  with the
 Chambolle-Pock iteration, Halpern-free average restarts every
 ``restart_period`` iterations (restart to the running average when it has a
 better normalised KKT score), and a power-iteration estimate of ||A|| for
-the step sizes.
+the step sizes.  Every matrix product runs at ``Precision.HIGHEST``
+(:func:`config.full_precision_matmuls`), since a float32 product at the
+default precision may run in TF32 on the GPU.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from smart_crossover_tpu.config import full_precision_matmuls
 
 
 @dataclass
@@ -39,6 +43,7 @@ class PDHGResult:
     gap: float
 
 
+@full_precision_matmuls
 def estimate_opnorm(A, iters: int = 50, seed: int = 0):
     """Power iteration for ||A||_2 (jittable)."""
     v = jax.random.normal(jax.random.PRNGKey(seed), (A.shape[1],),
@@ -53,11 +58,12 @@ def estimate_opnorm(A, iters: int = 50, seed: int = 0):
 
 
 @partial(jax.jit, static_argnames=("max_iters", "check_every",
-                                   "restart_period", "chunk_runner"))
+                                   "restart_period"))
+@full_precision_matmuls
 def _pdhg_core(A, b, c, l, u, is_eq, opnorm,
                x0, y0,
                max_iters: int, check_every: int, restart_period: int,
-               tol: float, chunk_runner=None):
+               tol: float):
     """Core loop with PDLP-style adaptive restarts + adaptive primal weight.
 
     Every ``check_every`` iterations the restart candidate (the better of
@@ -148,17 +154,10 @@ def _pdhg_core(A, b, c, l, u, is_eq, opnorm,
         (x, y, Ax, xs, ys, wsum, cnt, it, x_lr, y_lr, score_lr, score_prev,
          best_x, best_y, best_score, omega, eta, done) = state
         # one evaluation chunk; averages continue across chunks until
-        # restart.  chunk_runner is the VMEM-resident Pallas version of the
-        # same scan (ops/pdhg_pallas.py): A is read from HBM once per chunk
-        # instead of twice per iteration.
-        if chunk_runner is not None:
-            x, y, Ax, xs, ys, wsum, eta = chunk_runner(
-                A, b, c, l, u, is_eq, x, y, Ax, xs, ys,
-                wsum, eta, omega, it, opnorm)
-        else:
-            (x, y, Ax, xs, ys, wsum, eta, _, _), _ = jax.lax.scan(
-                one_iter, (x, y, Ax, xs, ys, wsum, eta, omega, it),
-                None, length=check_every)
+        # restart
+        (x, y, Ax, xs, ys, wsum, eta, _, _), _ = jax.lax.scan(
+            one_iter, (x, y, Ax, xs, ys, wsum, eta, omega, it),
+            None, length=check_every)
         cnt = cnt + check_every
         safe_w = jnp.where(wsum > 0, wsum, 1.0)
         x_avg = jnp.where(wsum > 0, xs / safe_w, x)
@@ -236,10 +235,10 @@ def _pdhg_core(A, b, c, l, u, is_eq, opnorm,
     return x, y, it, done
 
 
+@full_precision_matmuls
 def _pdhg_core_halpern(A, b, c, l, u, is_eq, opnorm, x0, y0,
                        max_iters: int, check_every: int,
-                       restart_period: int, tol: float,
-                       chunk_runner=None):
+                       restart_period: int, tol: float):
     """Restarted reflected-Halpern PDHG (r2HPDHG, Lu & Yang 2024; the
     cuPDLP+ acceleration).  One inner step is
 
@@ -303,17 +302,10 @@ def _pdhg_core_halpern(A, b, c, l, u, is_eq, opnorm, x0, y0,
     def outer_body(state):
         (x, y, Ax, xa, ya, Axa, cnt, it, x_lr, y_lr, score_lr, score_prev,
          best_x, best_y, best_score, omega, done) = state
-        if chunk_runner is not None:
-            # VMEM-resident Pallas chunk (ops/pdhg_pallas.py): A is read
-            # from HBM once per chunk instead of twice per iteration
-            x, y, Ax, _ = chunk_runner(A, b, c, l, u, is_eq, x, y, Ax,
-                                       xa, ya, Axa, omega,
-                                       jnp.asarray(cnt, x.dtype), step)
-        else:
-            (x, y, Ax, xa, ya, Axa, _, _), _ = jax.lax.scan(
-                one_iter, (x, y, Ax, xa, ya, Axa, omega,
-                           jnp.asarray(cnt, x.dtype)),
-                None, length=check_every)
+        (x, y, Ax, xa, ya, Axa, _, _), _ = jax.lax.scan(
+            one_iter, (x, y, Ax, xa, ya, Axa, omega,
+                       jnp.asarray(cnt, x.dtype)),
+            None, length=check_every)
         cnt = cnt + check_every
         # the restart/output candidate is T(z), the PDHG image of the
         # Halpern iterate (r2HPDHG outputs T(z_k)): the reflected sequence
@@ -646,21 +638,15 @@ def pdhg_solve(A, b, c, l, u, sense=None,
                restart_period: int = 200,
                x0=None, y0=None, rescale: bool = True,
                polish: bool = True,
-               use_pallas: bool | None = None,
                mode: str = "adaptive") -> PDHGResult:
     """Solve an LP with restarted PDHG (Ruiz-equilibrated by default).
 
     Args:
         A: (m, n) dense array (jnp/np) or BCOO.
         sense: length-m array of '='/'<' (None = all equality).
-        use_pallas: run the iteration chunks as the VMEM-resident Pallas
-            kernel (ops/pdhg_pallas.py).  Default: on TPU when dense A
-            fits the kernel's VMEM budget; forced True uses interpret
-            mode off-TPU (slow — for testing).
         mode: 'adaptive' (PDLP adaptive step sizes + averaging restarts,
             the default/oracle) or 'halpern' (restarted reflected-Halpern
-            acceleration, _pdhg_core_halpern — the sharp-tail engine;
-            XLA path only).
+            acceleration, _pdhg_core_halpern — the sharp-tail engine).
     """
     t0 = time.perf_counter()
     from jax.experimental import sparse as jsparse
@@ -732,56 +718,17 @@ def pdhg_solve(A, b, c, l, u, sense=None,
         y0 = jnp.asarray(y0, dtype=dtype)
 
     check_every = min(64, restart_period)
-    if use_pallas is None:
-        from smart_crossover_tpu.config import on_tpu
-        from smart_crossover_tpu.ops.pdhg_pallas import pdhg_pallas_ok
-
-        use_pallas = (on_tpu() and not isinstance(A, jsparse.BCOO)
-                      and pdhg_pallas_ok(-(-m // 8) * 8, -(-n // 128) * 128,
-                                         dtype))
-    if use_pallas and not isinstance(A, jsparse.BCOO):
-        from smart_crossover_tpu.config import interpret_pallas
-        from smart_crossover_tpu.ops.pdhg_pallas import (
-            get_pdhg_chunk_fn, pad_lp_for_pallas)
-
-        (Ap, bp, cp, lp, up, eqp, x0p, y0p, _, _) = pad_lp_for_pallas(
-            A, b, c, l, u, is_eq, x0, y0)
-        if mode == "halpern":
-            from smart_crossover_tpu.ops.pdhg_pallas import (
-                get_halpern_chunk_fn,
-            )
-
-            runner = get_halpern_chunk_fn(Ap.shape[0], Ap.shape[1],
-                                          str(jnp.dtype(dtype)),
-                                          check_every, interpret_pallas())
-            x, y, iters, done = _pdhg_core_halpern(
-                Ap, bp, cp, lp, up, eqp, opnorm, x0p, y0p,
-                max_iters=max_iters, check_every=check_every,
-                restart_period=restart_period, tol=tol,
-                chunk_runner=runner)
-        else:
-            runner = get_pdhg_chunk_fn(Ap.shape[0], Ap.shape[1],
-                                       str(jnp.dtype(dtype)), check_every,
-                                       interpret_pallas())
-            x, y, iters, done = _pdhg_core(
-                Ap, bp, cp, lp, up, eqp, opnorm, x0p, y0p,
-                max_iters=max_iters, check_every=check_every,
-                restart_period=restart_period, tol=tol,
-                chunk_runner=runner)
-        x = x[:n]
-        y = y[:m]
+    if use_scipy_core:
+        # BCOO matvecs on the CPU backend lower to gather/segment-sum and
+        # are 30-100x slower than scipy csr; run the host mirror
+        core = partial(_pdhg_core_scipy, A_sp)
     else:
-        if use_scipy_core:
-            # BCOO matvecs on the CPU backend lower to gather/segment-sum
-            # and are 30-100x slower than scipy csr; run the host mirror
-            core = partial(_pdhg_core_scipy, A_sp)
-        else:
-            core = partial(_pdhg_core_halpern if mode == "halpern"
-                           else _pdhg_core, A)
-        x, y, iters, done = core(
-            b, c, l, u, is_eq, opnorm, x0, y0,
-            max_iters=max_iters, check_every=check_every,
-            restart_period=restart_period, tol=tol)
+        core = partial(_pdhg_core_halpern if mode == "halpern"
+                       else _pdhg_core, A)
+    x, y, iters, done = core(
+        b, c, l, u, is_eq, opnorm, x0, y0,
+        max_iters=max_iters, check_every=check_every,
+        restart_period=restart_period, tol=tol)
     x = np.asarray(x, dtype=np.float64)
     y = np.asarray(y, dtype=np.float64)
     # residuals below are measured in the (well-conditioned) scaled space;

@@ -10,39 +10,25 @@ exactness either way), first-order is the cheaper engine.  Equality form
 and PDLP-style averaging: both the last iterate and the step-weighted
 average are returned; the caller keeps the better per instance.
 
-Two implementations with identical math:
-
-* vmapped XLA (the default and the oracle; any backend);
-* a Pallas grid kernel (``use_pallas=True``) with each instance's A
-  pinned in VMEM for ALL iterations, one instance per grid program.
-
-Measured on the v5e: the two are at PARITY for fleets (32x64x256 and
-8x256x1024, 2000 iters: ~0.56-0.63 s both) — fleet iterations are
-fori_loop-latency-bound, and XLA's batched GEMMs amortise that latency
-across instances while a per-instance grid cannot; VMEM residency buys
-nothing when the loop, not HBM, is the bottleneck.  (Mosaic's layout pass
-rejects the 3-D batched-dot form that could amortise like XLA does.)
-Hence the XLA path is the default here, and the VMEM-residency win lives
-in the SINGLE-instance chunk kernel (ops/pdhg_pallas.py, 1.3-2.1x) where
-A is large enough for HBM bandwidth to dominate.
+Every matrix product runs at ``Precision.HIGHEST``
+(:func:`config.full_precision_matmuls`): a default-precision float32
+product may run in TF32 on the GPU (about three decimal digits).
 
 No reference analog (the reference is single-instance and buys its
-barrier from vendors; reference lp_methods/algorithms.py:38-40) — this is
-the TPU-shaped fleet engine.
+barrier from vendors; reference lp_methods/algorithms.py:38-40).
 """
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from smart_crossover_tpu.config import interpret_pallas
+from smart_crossover_tpu.config import full_precision_matmuls
 
 
+@full_precision_matmuls
 def _opnorms(A, iters: int = 30):
     """Batched power iteration for ||A_i||_2 (B, m, n) -> (B,)."""
     B, m, n = A.shape
@@ -59,6 +45,7 @@ def _opnorms(A, iters: int = 30):
 
 
 @partial(jax.jit, static_argnames=("iters",))
+@full_precision_matmuls
 def _pdhg_fixed_batched(A, b, c, l, u, opnorm, x0, y0, iters: int):
     """Vmapped fixed-iteration adaptive PDHG (equality rows)."""
 
@@ -97,103 +84,7 @@ def _pdhg_fixed_batched(A, b, c, l, u, opnorm, x0, y0, iters: int):
     return jax.vmap(solve_one)(A, b, c, l, u, opnorm, x0, y0)
 
 
-def _batched_pdhg_kernel(A_ref, b_ref, c_ref, l_ref, u_ref, scal_ref,
-                         x_out, y_out, xa_out, ya_out, *, iters):
-    # one instance per grid program, 2-D in-kernel math (Mosaic's layout
-    # pass rejects the 3-D batched dot_general + (BB,1,1) scalar layouts);
-    # the grid supplies the batching, A stays VMEM-resident for all iters
-    A = A_ref[0]                         # (m, n)
-    b = b_ref[0]                         # (1, m)
-    c = c_ref[0]                         # (1, n)
-    l = l_ref[0]
-    u = u_ref[0]
-    opnorm = scal_ref[0, 0, 0]
-    dt = A.dtype
-
-    def atv(y_row):                      # (1, m) x (m, n) -> (1, n)
-        return jax.lax.dot_general(y_row, A, (((1,), (0,)), ((), ())),
-                                   preferred_element_type=dt)
-
-    def av(x_row):                       # (1, n) x (m, n)' -> (1, m)
-        return jax.lax.dot_general(x_row, A, (((1,), (1,)), ((), ())),
-                                   preferred_element_type=dt)
-
-    def rsum(t):
-        return jnp.sum(t)
-
-    def body(k, carry):
-        # same math as _pdhg_fixed_batched.solve_one
-        x, y, Ax, xs, ys, wsum, eta = carry
-        x_c = jnp.clip(x - eta * (c - atv(y)), l, u)
-        Ax_c = av(x_c)
-        y_c = y + eta * (b - (2.0 * Ax_c - Ax))
-        dx = x_c - x
-        dy = y_c - y
-        curv = jnp.abs(rsum(dy * (Ax_c - Ax)))
-        nz = rsum(dx * dx) + rsum(dy * dy)
-        eta_bar = jnp.where(curv > 0, nz / (2.0 * curv), 1e10 / opnorm)
-        accept = eta <= eta_bar
-        k1 = (jnp.asarray(k, dt) + 2.0)  # PDLP schedule index for 0-based k
-        logk1 = jnp.log(k1)
-        eta_next = jnp.minimum((1.0 - jnp.exp(-0.3 * logk1)) * eta_bar,
-                               (1.0 + jnp.exp(-0.6 * logk1)) * eta)
-        eta_next = jnp.clip(eta_next, 1e-10 / opnorm, 1e10 / opnorm)
-        x = jnp.where(accept, x_c, x)
-        y = jnp.where(accept, y_c, y)
-        Ax = jnp.where(accept, Ax_c, Ax)
-        w = jnp.where(accept, eta, jnp.zeros_like(eta))
-        return (x, y, Ax, xs + w * x, ys + w * y, wsum + w, eta_next)
-
-    x0 = jnp.clip(jnp.zeros_like(c), l, u)
-    y0 = jnp.zeros_like(b)
-    eta0 = 0.9 / opnorm
-    init = (x0, y0, av(x0), jnp.zeros_like(x0), jnp.zeros_like(y0),
-            jnp.zeros_like(eta0), eta0)
-    x, y, _, xs, ys, wsum, _ = jax.lax.fori_loop(0, iters, body, init)
-    safe = jnp.where(wsum > 0, wsum, jnp.ones_like(wsum))
-    x_out[0] = x
-    y_out[0] = y
-    xa_out[0] = xs / safe
-    ya_out[0] = ys / safe
-
-
-def batched_pdhg_pallas_ok(block_b: int, m: int, n: int,
-                           dtype=jnp.float32,
-                           vmem_budget: int = 14 * 1024 * 1024) -> bool:
-    itemsize = jnp.dtype(dtype).itemsize
-    vmem = block_b * (2 * m * n + 16 * (m + n)) * itemsize
-    return m % 8 == 0 and n % 128 == 0 and vmem < vmem_budget
-
-
-@lru_cache(maxsize=16)
-def _get_batched_call(B: int, block_b: int, m: int, n: int,
-                      dtype_name: str, iters: int, interpret: bool):
-    dt = jnp.dtype(dtype_name)
-    kernel = partial(_batched_pdhg_kernel, iters=iters)
-
-    def vs(shape):
-        return pl.BlockSpec(shape, lambda i: (i,) + (0,) * (len(shape) - 1),
-                            memory_space=pltpu.VMEM)
-
-    return pl.pallas_call(
-        kernel,
-        grid=(B // block_b,),
-        in_specs=[vs((block_b, m, n)), vs((block_b, 1, m)),
-                  vs((block_b, 1, n)), vs((block_b, 1, n)),
-                  vs((block_b, 1, n)), vs((block_b, 1, 8))],
-        out_specs=(vs((block_b, 1, n)), vs((block_b, 1, m)),
-                   vs((block_b, 1, n)), vs((block_b, 1, m))),
-        out_shape=(jax.ShapeDtypeStruct((B, 1, n), dt),
-                   jax.ShapeDtypeStruct((B, 1, m), dt),
-                   jax.ShapeDtypeStruct((B, 1, n), dt),
-                   jax.ShapeDtypeStruct((B, 1, m), dt)),
-        interpret=interpret,
-    )
-
-
-def pdhg_dense_batched(A, b, c, l, u, iters: int = 2000,
-                       use_pallas: bool | None = None,
-                       block_b: int | None = None):
+def pdhg_dense_batched(A, b, c, l, u, iters: int = 2000):
     """Fleet PDHG warm starts: (B, m, n) equality-form LPs.
 
     Returns dict with x, y (last iterates), x_avg, y_avg (step-weighted
@@ -208,21 +99,8 @@ def pdhg_dense_batched(A, b, c, l, u, iters: int = 2000,
     u = jnp.asarray(u, dt)
     opnorm = _opnorms(A)
 
-    if use_pallas is None:
-        use_pallas = False   # measured parity on TPU — see module docstring
-    if use_pallas:
-        if block_b is None:
-            block_b = 1   # one instance per grid program (2-D kernel math)
-        call = _get_batched_call(B, block_b, m, n, str(dt), iters,
-                                 interpret_pallas())
-        scal = jnp.zeros((B, 1, 8), dt).at[:, 0, 0].set(opnorm)
-        x, y, xa, ya = call(A, b[:, None, :], c[:, None, :],
-                            l[:, None, :], u[:, None, :], scal)
-        x, y, xa, ya = x[:, 0], y[:, 0], xa[:, 0], ya[:, 0]
-    else:
-        x0 = jnp.clip(jnp.zeros_like(c), l, u)
-        y0 = jnp.zeros_like(b)
-        x, y, xa, ya = _pdhg_fixed_batched(A, b, c, l, u, opnorm,
-                                           x0, y0, iters)
+    x0 = jnp.clip(jnp.zeros_like(c), l, u)
+    y0 = jnp.zeros_like(b)
+    x, y, xa, ya = _pdhg_fixed_batched(A, b, c, l, u, opnorm, x0, y0, iters)
     return {"x": x, "y": y, "x_avg": xa, "y_avg": ya,
             "opnorm": np.asarray(opnorm)}

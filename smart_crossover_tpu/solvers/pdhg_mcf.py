@@ -1,18 +1,11 @@
-"""Device-resident arc-list PDHG for min-cost flow (VERDICT r3 item 4).
+"""Device-resident arc-list PDHG for min-cost flow.
 
 The warm-start stage of the GOTO-17 flagship protocol (reference
 scripts/run_network_crossover.py:38 — first-order warm start, then
-crossover) previously ran the scipy host mirror at ~25 ms/iteration
-(114–137 s for 5k iterations at 131k nodes / 786k arcs).  A naive device
-port is no better: XLA lowers 1-D gathers/scatters on TPU to ~7 ns per
-ELEMENT (measured 5.8 ms for a 786k gather — scalar addressing), so BCOO
-incidence matvecs are gather-bound.
-
-This module builds the incidence matvecs out of the primitives that DO
-vectorize on TPU (measured at 786k arcs):
-
-* fixed-permutation via ``sort``  1.8 ms (vs 5.8 ms gather)
-* blocked reshape row-sums / broadcasts   ~0.3 ms
+crossover).  The incidence matvecs are built without gathers, from sorts
+and reshapes (the design was shaped by a machine on which 1-D gathers
+were scalar-addressed; whether ``segment_sum`` is as fast on the GPU is
+not measured yet):
 
 Layout: NODES are relabeled by degree and ARCS stored grouped by
 (degree bucket, node) — "T-order" for tails, "H-order" for heads.  Every
@@ -21,14 +14,10 @@ node bucket of out-degree k is then an (m_k, k) MATRIX slice:
 * segment-sum by tails = per-bucket reshape row-sums (no gathers at all);
 * per-arc broadcast y[tail(a)] = per-bucket shape broadcasts;
 * the head-side versions run in the in-degree node order plus one
-  m-sized sort-permute back to the canonical node order (m ~ n/6, so
-  these cost ~0.3 ms vs the n-sized 1.8 ms sorts).
+  m-sized sort-permute back to the canonical node order.
 
 The degree-REGULAR special case (real GOTO generator output) is one
-bucket: the round-4 fast path, unchanged.  The general bucketed path
-replaces the round-4 cumsum+gather construction, cutting the irregular
-iteration from ~11 ms to near the regular path's ~5 ms (VERDICT r4
-item 4).
+bucket.
 
 The PDHG itself reuses the validated restarted cores of solvers/pdhg.py
 (adaptive PDLP and reflected-Halpern r2HPDHG) through an operator object
@@ -66,7 +55,7 @@ def _degree_buckets(cnt_sorted):
 
 
 class IncidenceDeviceOp:
-    """TPU-friendly node-arc incidence operator.
+    """Gather-free node-arc incidence operator.
 
     Arc vectors live in T-order (grouped by out-degree bucket, then tail);
     node vectors live in N-order (nodes sorted by out-degree) — exposed as

@@ -78,7 +78,7 @@ def apply_projector_with_free(Y, v, A_f, tol: float = 1e-6,
 
 
 # --------------------------------------------------------------------------
-# JAX path (jittable; used by the TPU projection benchmarks and any dense
+# JAX path (jittable; used by the device projection benchmarks and any dense
 # problem that lives on device)
 # --------------------------------------------------------------------------
 def apply_projector_jax(Y, v, tol: float = 1e-8, max_iter: int = 1000):

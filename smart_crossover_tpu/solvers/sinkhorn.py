@@ -5,7 +5,7 @@ replacement for both the POT ``sinkhorn`` warm start the reference scripts use
 (reference scripts/run_network_crossover.py:96, reg=10, numItermax=1000) and
 the vendor barrier ``x_bar`` the crossover consumes.  Log-domain iterations
 are numerically safe at small regularisation; the inner loop is a pair of
-row/column logsumexp reductions that map straight onto the VPU/MXU and vmap
+row/column logsumexp reductions that XLA fuses on the device and vmap
 over instance batches.
 """
 from __future__ import annotations

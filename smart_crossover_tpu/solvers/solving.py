@@ -47,14 +47,14 @@ from smart_crossover_tpu.solvers.simplex import (
 
 logger = logging.getLogger(__name__)
 
-_KNOWN_BACKENDS = ("JAX", "TPU", "GRB", "CPL", "MSK")
+_KNOWN_BACKENDS = ("JAX", "GRB", "CPL", "MSK")
 
 
 def _check_backend(solver: str) -> None:
     if solver not in _KNOWN_BACKENDS:
         raise ValueError(
             f"Unknown solver {solver!r}; choose from {_KNOWN_BACKENDS} "
-            "(all names dispatch to the in-house TPU/JAX backend).")
+            "(all names dispatch to the in-house JAX backend).")
 
 
 def _as_general(lp: Union[GeneralLP, StandardLP]) -> GeneralLP:
@@ -586,7 +586,7 @@ def solve_ot(ot: OptTransport,
             reg=settings.sinkhornReg, sinkhorn_iters=1000,
             engine=settings.deviceSimplexEngine)
         status = "OPTIMAL" if bool(_np.asarray(opt)[0]) else "ITERATION_LIMIT"
-        # the device pivots in backend precision (f32 on TPU); the
+        # the device pivots in backend precision (f32 by default); the
         # returned VERTEX is recomputed exactly on the host from the
         # spanning-tree basis and certified under the reference test
         from smart_crossover_tpu.network_methods.certify import (

@@ -220,8 +220,8 @@ def test_ipm_degenerate_vertex_endgame_precision():
 
 
 def test_factor_spd_accepts_dense_ndarray():
-    """_factor_spd must handle device-formed dense products
-    (solvers/ne_offload.py) identically to sparse input."""
+    """_factor_spd must handle dense products identically to sparse
+    input."""
     import scipy.sparse as sp
 
     from smart_crossover_tpu.solvers.ipm import _factor_spd
@@ -236,15 +236,6 @@ def test_factor_spd_accepts_dense_ndarray():
     np.testing.assert_allclose(s_dense, s_sparse, rtol=1e-9)
     x = np.linalg.solve(M + 1e-12 * np.eye(m), rhs)
     np.testing.assert_allclose(s_dense, x, rtol=1e-6, atol=1e-9)
-
-
-def test_ne_offload_disabled_off_tpu():
-    import scipy.sparse as sp
-
-    from smart_crossover_tpu.solvers.ne_offload import maybe_device_ne
-
-    A = sp.random(2000, 4000, density=0.01, format="csr")
-    assert maybe_device_ne(A) is None   # CPU backend / env gate
 
 
 def test_ipm_wide_free_variable_set():

@@ -120,7 +120,7 @@ def test_device_ne_solver_refines_to_f64(rng):
 
 
 def test_device_ne_direct_f64_path(rng):
-    """Native-f64 backends (CPU here, the TPU live) factor+solve the
+    """Native-f64 backends (CPU here, the GPU) factor+solve the
     exact f64 system directly: eps-level residual in ONE solve, no CG,
     and the escalated-shift breakdown path is verified by the IR check."""
     from smart_crossover_tpu.solvers.ne_device import DeviceNE

@@ -137,7 +137,7 @@ def test_push_to_bfs_known_negative():
 
 
 def test_one_hot_gather_helpers_match_numpy(rng):
-    """_take_f/_take_i (the TPU gather replacement used across mst.py,
+    """_take_f/_take_i (the one-hot gather idiom used across mst.py,
     transport_simplex_parent.py and tnet_sharded.py) must be EXACT."""
     import numpy as np
 

@@ -233,28 +233,6 @@ def test_sharded_tnet_width_equivalence(rng):
         assert abs(results[w][0] - base) < 1e-6 * (1 + abs(base))
 
 
-def test_batched_tnet_pallas_sinkhorn_path_matches_xla(rng):
-    """The Pallas-Sinkhorn TNET route (default on TPU) must produce the
-    same vertices as the XLA route: per-instance eps is folded into the
-    cost (plan invariant under (M/eps, eps=1))."""
-    import numpy as np
-
-    from smart_crossover_tpu.parallel.batched import batched_tnet
-
-    B, S, D = 3, 16, 128
-    s = rng.uniform(0.5, 2, (B, S))
-    d = rng.uniform(0.5, 2, (B, D))
-    d *= (s.sum(1) / d.sum(1))[:, None]
-    M = rng.uniform(0, 5, (B, S, D))
-    o_xla = batched_tnet(s, d, M, use_pallas=False)
-    o_pls = batched_tnet(s, d, M, use_pallas=True)   # interpret on CPU
-    np.testing.assert_allclose(np.asarray(o_pls[2]), np.asarray(o_xla[2]),
-                               rtol=1e-9)
-    X = np.asarray(o_pls[0])
-    assert np.abs(X.sum(2) - s).max() < 1e-8
-    assert np.abs(X.sum(1) - d).max() < 1e-8
-
-
 def test_batched_tnet_exact_device_engine_matches_host(rng):
     """engine='device' (one-hot simplex, whole solve on device) must reach
     the same exact optima as the host-cleanup path."""
@@ -298,3 +276,43 @@ def test_sharded_exact_device_simplex_certified(rng):
     assert opth.all()
     np.testing.assert_allclose(
         np.array([c.obj_val for c in certs]), oh, rtol=1e-9)
+
+
+@pytest.mark.parametrize("S,D,accelerator,sharded,want", [
+    (256, 256, True, False, "packed"),
+    (784, 784, True, False, "packed"),
+    (16, 1024, True, False, "packed"),
+    (1025, 64, True, False, "host"),
+    (256, 256, True, True, "host"),
+    (256, 256, False, False, "host"),
+])
+def test_auto_engine_routing_table(S, D, accelerator, sharded, want):
+    from smart_crossover_tpu.parallel.batched import auto_engine
+
+    mesh = object() if sharded else None
+    assert auto_engine(S, D, mesh=mesh, accelerator=accelerator) == want
+
+
+def test_auto_engine_on_this_backend_is_host():
+    from smart_crossover_tpu.parallel.batched import auto_engine
+
+    assert auto_engine(256, 256) == "host"
+
+
+def test_device_step_batch_matches_single_instances(rng):
+    """The whole-batch vmap gives each instance the result it gets alone."""
+    from smart_crossover_tpu.parallel.batched import (
+        batched_tnet_exact_device,
+    )
+
+    s, d, M = make_batch(rng, B=3, S=9, D=11)
+    out = batched_tnet_exact_device(s, d, M, reg=0.01, sinkhorn_iters=200,
+                                    max_pivots=500)
+    for i in range(3):
+        one = batched_tnet_exact_device(s[i:i + 1], d[i:i + 1], M[i:i + 1],
+                                        reg=0.01, sinkhorn_iters=200,
+                                        max_pivots=500)
+        np.testing.assert_array_equal(np.asarray(one[5])[0],
+                                      np.asarray(out[5])[i])
+        np.testing.assert_allclose(np.asarray(one[1])[0],
+                                   np.asarray(out[1])[i], rtol=1e-12)

@@ -181,3 +181,37 @@ def test_pdhg_halpern_mode_matches_adaptive(rng):
                    mode="halpern")
     assert r.status == "OPTIMAL"
     assert abs(r.obj_val - ref.fun) < 1e-5 * (1 + abs(ref.fun))
+
+
+@pytest.mark.parametrize("mode", ["adaptive", "halpern"])
+def test_pdhg_unaligned_mixed_rows_match_highs(rng, mode):
+    """A deliberately unaligned 12 x 50 LP with '=' and '<' rows, in both
+    restart modes, against HiGHS."""
+    m, n = 12, 50
+    A = rng.standard_normal((m, n))
+    b = A @ rng.uniform(0.1, 0.9, n)
+    sense = np.array(["="] * 6 + ["<"] * 6)
+    b = b + np.where(sense == "<", 0.3, 0.0)
+    c = rng.standard_normal(n)
+    res = pdhg_solve(A, b, c, np.zeros(n), np.ones(n), sense=sense,
+                     tol=1e-8, max_iters=20000, mode=mode)
+    ref = linprog(c, A_eq=A[:6], b_eq=b[:6], A_ub=A[6:], b_ub=b[6:],
+                  bounds=[(0, 1)] * n, method="highs")
+    assert res.status == "OPTIMAL"
+    assert res.obj_val == pytest.approx(ref.fun, abs=1e-6)
+
+
+def test_full_precision_matmuls_scopes_the_trace():
+    """full_precision_matmuls traces its function under 'highest' and
+    leaves the caller's default alone."""
+    import jax
+
+    from smart_crossover_tpu.config import full_precision_matmuls
+
+    seen = []
+    wrapped = full_precision_matmuls(
+        lambda: seen.append(jax.config.jax_default_matmul_precision))
+    before = jax.config.jax_default_matmul_precision
+    wrapped()
+    assert seen == ["highest"]
+    assert jax.config.jax_default_matmul_precision == before
